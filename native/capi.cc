@@ -1,4 +1,4 @@
-// C API for ctypes bindings (steganosaurus_tpu/_native_loader.py).
+// C API for ctypes bindings (steganosaurus_jax/_native_loader.py).
 #include <cstdint>
 
 #include "aead.h"

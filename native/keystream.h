@@ -1,7 +1,7 @@
 // Keyed turtle-walk keystream expansion — the reference's only strictly
 // sequential component (steganosaur.cpp:665-810), run on the host so the
 // device side is one vectorized gather/scatter. Semantics are byte-exact with
-// the reference; see steganosaurus_tpu/keystream/_pure.py for the annotated
+// the reference; see steganosaurus_jax/keystream/_pure.py for the annotated
 // Python twin used as the test oracle.
 #pragma once
 
@@ -23,7 +23,7 @@ int64_t turtle_expand(const uint8_t walk_key[32], const uint8_t key_r[32],
                       int32_t* out_x, double* out_jitter);
 
 // As turtle_expand, plus visited-bitmap chaining for the per-image-walk
-// mode (steganosaurus_tpu/pipeline — salt-keyed payload walks resume from
+// mode (steganosaurus_jax/pipeline — salt-keyed payload walks resume from
 // the shared header walk's visited state so per-image bins never collide
 // with the header's). Bitmaps are (3*H*W + 63)/64 uint64 words, bit index
 // (plane*H + y)*W + x. init_visited (nullable) pre-seeds the visited set;

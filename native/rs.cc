@@ -1,6 +1,6 @@
 // Reed-Solomon RS(255,223) interleaved codec over GF(2^8) — native hot path.
 //
-// Mirrors steganosaurus_tpu/ops/rs.py exactly (same field 0x11d, fcr=1,
+// Mirrors steganosaurus_jax/ops/rs.py exactly (same field 0x11d, fcr=1,
 // CCSDS parameterization, near-equal shortened blocks, column-major
 // cross-block interleaving, erasure-count ladder {24,16,8} on the soft
 // path). The numpy implementation stays as the un-built fallback and the

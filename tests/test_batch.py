@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.parallel import batch as pbatch
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
-from steganosaurus_tpu.pipeline.extract import extract_array
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.parallel import batch as pbatch
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.pipeline.extract import extract_array
 
 FAST = dict(pbkdf2_iter=500)
 
@@ -73,7 +73,7 @@ def test_batch_embed_verify_mode(covers, monkeypatch):
 
     # Force one failure on the first read-back: the retry must re-embed that
     # image with a fresh salt and converge.
-    import steganosaurus_tpu.pipeline.batch as pb
+    import steganosaurus_jax.pipeline.batch as pb
 
     real_extract = pb.extract_batch
     calls = {"n": 0}
@@ -158,7 +158,7 @@ def test_batch_device_resident_roundtrip(covers):
 def test_batch_verify_mesh_retry_nondivisible(covers, monkeypatch):
     """verify=True over a mesh must survive a failed-image count that does
     not divide the mesh size (the retry re-embeds the subset unsharded)."""
-    import steganosaurus_tpu.pipeline.batch as pb
+    import steganosaurus_jax.pipeline.batch as pb
 
     p = Params(**FAST)
     mesh = pbatch.make_mesh(8)
@@ -215,7 +215,7 @@ def test_4k_uhd_payload_ceiling():
     raise the bounded capacity error (the reference HANGS past capacity on a
     corrupt clen — doc/TESTING.md:151-156 — and aborts on its conservative
     estimator otherwise; our boundary is the true walk capacity)."""
-    from steganosaurus_tpu.pipeline.errors import StegoError
+    from steganosaurus_jax.pipeline.errors import StegoError
 
     rng = np.random.default_rng(5)
     base = np.linspace(140, 230, 3840)
@@ -256,7 +256,7 @@ def test_stream_pipelining_matches_batch(covers):
     """embed_stream/extract_stream (pipeline.stream) must produce results
     identical to per-batch embed_batch/extract_batch: the overlap is pure
     scheduling, never semantics. Fixed salts make the comparison exact."""
-    from steganosaurus_tpu.pipeline import stream
+    from steganosaurus_jax.pipeline import stream
 
     p = Params(**FAST)
     secrets = [bytes([i]) * (5 + i) for i in range(6)]
@@ -281,7 +281,7 @@ def test_extract_dispatch_finalize(covers):
     """The dispatch/finalize split (host/device overlap seam) is
     semantically identical to the blocking call, including with a fused
     clen_hint and with interleaved jobs in flight."""
-    from steganosaurus_tpu.pipeline.batch import extract_dispatch
+    from steganosaurus_jax.pipeline.batch import extract_dispatch
 
     p = Params(**FAST)
     secrets = [b"dispatch" * 3] * 3 + [b"finalize!"] * 3
@@ -298,7 +298,7 @@ def test_nchw_layout_matches_nhwc(covers):
     """layout='nchw' (the device-resident serving fast path that skips both
     u8 relayouts) must produce pixel-identical stego and identical
     extraction vs the default layout."""
-    from steganosaurus_tpu.pipeline.batch import channel_report
+    from steganosaurus_jax.pipeline.batch import channel_report
 
     p = Params(**FAST)
     secrets = [bytes([40 + i]) * 12 for i in range(6)]
@@ -319,7 +319,7 @@ def test_nchw_layout_matches_nhwc(covers):
 def test_stream_over_mesh(covers):
     """The stream pipeline composes with mesh sharding: streamed results
     over an 8-device mesh equal the unsharded per-batch results."""
-    from steganosaurus_tpu.pipeline import stream
+    from steganosaurus_jax.pipeline import stream
 
     mesh = pbatch.make_mesh(8)
     p = Params(**FAST)
@@ -342,7 +342,7 @@ def test_batch_jitter_corner_paths(covers):
     jitter write/read trig, the fused-extract jitter branch, and the
     channel report's jitter analysis — previously only the single-image
     legacy scatter path had jitter coverage."""
-    from steganosaurus_tpu.pipeline.batch import channel_report
+    from steganosaurus_jax.pipeline.batch import channel_report
 
     p = Params(jitter=0.2, **FAST)
     secrets = [bytes([70 + i]) * (7 + i) for i in range(6)]
@@ -381,8 +381,8 @@ def test_edge_cases(covers):
     """Empty payloads, empty streams, clean-cover extraction, and wrong
     passwords must all behave gracefully (no crashes, None per failed
     image) across batch, dispatch, and stream surfaces."""
-    from steganosaurus_tpu.pipeline import stream
-    from steganosaurus_tpu.pipeline.batch import extract_dispatch
+    from steganosaurus_jax.pipeline import stream
+    from steganosaurus_jax.pipeline.batch import extract_dispatch
 
     p = Params(**FAST)
     two = covers[:2]
@@ -401,8 +401,8 @@ def test_stream_depth_watermark(covers, monkeypatch):
     the docstring's promise (a prior off-by-one held depth+1: ~800 MB of
     surplus device-resident stego at 4K/B=32). Watermark = dispatched minus
     yielded, sampled at every dispatch."""
-    from steganosaurus_tpu.pipeline import stream as pstream
-    from steganosaurus_tpu.pipeline.batch import extract_dispatch as real_ed
+    from steganosaurus_jax.pipeline import stream as pstream
+    from steganosaurus_jax.pipeline.batch import extract_dispatch as real_ed
 
     p = Params(**FAST)
     secrets = [b"watermark"] * 2
@@ -448,7 +448,7 @@ def test_extract_finalize_idempotent(covers):
     """finalize() must cache its result: a second call on a job obtained
     from the public extract_dispatch() returns the SAME list instead of
     crashing on the consumed device buffer."""
-    from steganosaurus_tpu.pipeline.batch import extract_dispatch
+    from steganosaurus_jax.pipeline.batch import extract_dispatch
 
     p = Params(**FAST)
     secrets = [b"idempotent"] * 6
@@ -467,7 +467,7 @@ def test_embed_extract_share_cached_statics(covers, jitter):
     the caches (nbits=frame_total, bucket=ceil4096(total)) identically
     (total-frame bucketing; a prior mismatch built functionally identical
     statics twice on the jitter path)."""
-    from steganosaurus_tpu.pipeline import batch as pipeline_batch
+    from steganosaurus_jax.pipeline import batch as pipeline_batch
 
     p = Params(jitter=jitter, **FAST)
     secrets = [b"one-shared-statics-build"] * 6  # equal-length fast path
@@ -494,8 +494,8 @@ def test_stream_key_rotation_prefetch(covers, monkeypatch):
     than stalling the dispatching thread."""
     import threading
 
-    from steganosaurus_tpu import keystream
-    from steganosaurus_tpu.pipeline import stream as pstream
+    from steganosaurus_jax import keystream
+    from steganosaurus_jax.pipeline import stream as pstream
 
     expand_threads: list[str] = []
     real_expand = keystream.turtle_expand
@@ -532,7 +532,7 @@ def test_stream_key_rotation_prefetch(covers, monkeypatch):
 def test_extract_stream_key_rotation(covers):
     """extract_stream accepts (stego, master_key) tuples — the symmetric
     rotation surface to embed_stream's 4th element."""
-    from steganosaurus_tpu.pipeline import stream as pstream
+    from steganosaurus_jax.pipeline import stream as pstream
 
     p = Params(**FAST)
     mk1, mk2 = bytes(range(32)), bytes(range(2, 34))
@@ -674,8 +674,8 @@ def test_piw_prefetch_cache_and_stream(covers):
     per-image-walk mode's dominant host cost); embed_batch POPS the entries
     (single-use — salts rotate). embed_stream draws salts up front and
     prefetches for flagged params; results must be identical."""
-    from steganosaurus_tpu.pipeline import batch as pbatch_mod
-    from steganosaurus_tpu.pipeline.stream import embed_stream
+    from steganosaurus_jax.pipeline import batch as pbatch_mod
+    from steganosaurus_jax.pipeline.stream import embed_stream
 
     p = Params(per_image_walk=True, **FAST)
     secrets = [b"piw-pf-%d" % i for i in range(4)]
@@ -708,9 +708,9 @@ def test_piw_walk_arrays_strict_vs_tolerant():
     corrupt — header clens) pads with the last real bin instead, so one
     corrupt-clen image degrades to an AEAD failure rather than aborting
     the whole batch (the reference hang class, doc/TESTING.md:151-156)."""
-    from steganosaurus_tpu.pipeline.batch import (_HEADER_STREAM_BITS,
+    from steganosaurus_jax.pipeline.batch import (_HEADER_STREAM_BITS,
                                                   _piw_walk_arrays)
-    from steganosaurus_tpu.pipeline.errors import StegoError
+    from steganosaurus_jax.pipeline.errors import StegoError
 
     salts = [bytes([1]) * 16]
     # 64x64 grid cannot carry ~6k payload bits after the header
@@ -727,7 +727,7 @@ def test_piw_walk_arrays_strict_vs_tolerant():
 def test_extract_stream_piw(covers):
     """extract_stream handles per-image-walk stegos (the flag-driven payload
     pass lives in the dispatch/finalize seam the stream drives)."""
-    from steganosaurus_tpu.pipeline.stream import extract_stream
+    from steganosaurus_jax.pipeline.stream import extract_stream
 
     p = Params(per_image_walk=True, **FAST)
     secrets = [b"s-piw-%d" % i for i in range(3)]

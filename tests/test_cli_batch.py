@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from steganosaurus_tpu import cli
-from steganosaurus_tpu.io import image as image_io
+from steganosaurus_jax import cli
+from steganosaurus_jax.io import image as image_io
 
 FAST = ["--pbkdf2_iter", "500"]
 

@@ -17,15 +17,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from steganosaurus_tpu import keystream
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.keystream import _pure
-from steganosaurus_tpu.ops import phase as phase_ops
-from steganosaurus_tpu.pipeline import device as device_mod
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.errors import StegoError
-from steganosaurus_tpu.pipeline.extract import extract_array
+from steganosaurus_jax import keystream
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.keystream import _pure
+from steganosaurus_jax.ops import phase as phase_ops
+from steganosaurus_jax.pipeline import device as device_mod
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.errors import StegoError
+from steganosaurus_jax.pipeline.extract import extract_array
 
 
 def _keys(tag: bytes):
@@ -56,7 +56,7 @@ def test_coherent_walk_sites_consumed_whole():
 
 
 def test_coherent_walk_native_matches_pure():
-    from steganosaurus_tpu import _native_loader
+    from steganosaurus_jax import _native_loader
 
     lib = _native_loader.get()
     if lib is None or not getattr(lib, "has_expand_vc", False):
@@ -204,10 +204,10 @@ def test_coherent_flag_on_wire():
     warden AUC 1.0 — doc/ATTACKS.md §2e) and carries FLAGS bit 0x08; the
     standard shared-walk rule must NOT find the magic (no single-plane
     writes exist anywhere in a coherent stego)."""
-    from steganosaurus_tpu import crypto, spectral
-    from steganosaurus_tpu.ops import bits as bit_ops
-    from steganosaurus_tpu.ops import ecc
-    from steganosaurus_tpu.pipeline import header as header_mod
+    from steganosaurus_jax import crypto, spectral
+    from steganosaurus_jax.ops import bits as bit_ops
+    from steganosaurus_jax.ops import ecc
+    from steganosaurus_jax.pipeline import header as header_mod
 
     rng = np.random.default_rng(21)
     cover = rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)

@@ -1,12 +1,15 @@
 """utils/cost.py: the MFU/roofline cost model must count the EXACT modules
-the serving pipeline dispatches (VERDICT r3 item 2 — bench `mfu_pct` /
-`link_utilization` are only honest if the counted module is the dispatched
-module)."""
+the serving pipeline dispatches (bench `mfu_pct` / `link_utilization` are
+only honest if the counted module is the dispatched module); the device
+peak table; the compilation-cache location (runtime.py)."""
+
+import pathlib
 
 import numpy as np
+import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.utils import cost
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.utils import cost
 
 
 def _covers(B, H, W, rng):
@@ -19,8 +22,8 @@ def _covers(B, H, W, rng):
 def test_cost_counts_the_dispatched_modules():
     import jax
 
-    from steganosaurus_tpu.parallel import batch as pbatch
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.parallel import batch as pbatch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     B, H, W, n = 4, 128, 128, 40
     rng = np.random.default_rng(0)
@@ -80,3 +83,40 @@ def test_measure_device_step_and_link_smoke():
     link = cost.measure_link(nbytes=1 << 20, reps=1)
     assert link["up_bytes_per_sec"] > 0
     assert link["down_bytes_per_sec"] > 0
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compilation_cache_honours_env(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR set: JAX reads it and no other directory
+    is set in code. Unset: the fixed in-checkout path."""
+    import jax
+
+    from steganosaurus_jax import runtime
+
+    calls = {}
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: calls.__setitem__(k, v))
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    runtime.enable_compilation_cache()
+    if env_dir:
+        assert "jax_compilation_cache_dir" not in calls
+    else:
+        got = calls["jax_compilation_cache_dir"]
+        repo = pathlib.Path(runtime.__file__).resolve().parent.parent
+        assert got.startswith(str(repo / ".cache" / "jax-"))
+
+
+def test_device_peaks_h100_and_unknown():
+    from steganosaurus_jax.utils import metrics
+
+    p = metrics.device_peaks("NVIDIA H100 80GB HBM3")
+    assert p["bf16_flops_per_s"] == 989e12
+    assert p["tf32_flops_per_s"] == 495e12
+    assert p["fp32_flops_per_s"] == 67e12
+    assert p["hbm_bytes_per_s"] == 3.35e12
+    with pytest.raises(ValueError, match="no published peaks"):
+        metrics.device_peaks("cpu")
+    assert metrics.mfu_pct(989e12, 2.0, p["bf16_flops_per_s"]) == 50.0

@@ -2,8 +2,8 @@
 
 import pytest
 
-from steganosaurus_tpu import _native_loader, crypto
-from steganosaurus_tpu.crypto import _pure, keywrap
+from steganosaurus_jax import _native_loader, crypto
+from steganosaurus_jax.crypto import _pure, keywrap
 
 RFC_KEY = bytes(range(0x80, 0xA0))
 RFC_NONCE = bytes.fromhex("070000004041424344454647")
@@ -132,8 +132,8 @@ def test_decode_or_unwrap_accepts_tool_format():
     """Interop-bug fix: `--key` accepts keys wrapped by the key TOOL (81B
     TFKW v1) as well as the main binary's 80B format (SURVEY.md §3.4 — the
     reference rejects its own tool's output)."""
-    from steganosaurus_tpu import crypto
-    from steganosaurus_tpu.crypto import keywrap
+    from steganosaurus_jax import crypto
+    from steganosaurus_jax.crypto import keywrap
 
     key = bytes(range(32))
     tool_blob = keywrap.wrap_key_tool(key, "pw")

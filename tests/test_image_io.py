@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from steganosaurus_tpu.io import image as image_io
+from steganosaurus_jax.io import image as image_io
 
 
 def _families(rng, h, w):
@@ -95,7 +95,7 @@ def test_fast_decode_bounds_zlib_bomb():
     import struct
     import zlib
 
-    from steganosaurus_tpu.io.image import _decode_png_fast, _png_chunk
+    from steganosaurus_jax.io.image import _decode_png_fast, _png_chunk
 
     ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 0)  # declares 4x4
     bomb = zlib.compress(b"\x00" * 50_000_000, 9)  # ~50 MB inflated
@@ -113,7 +113,7 @@ def test_fast_decode_rejects_corrupted_crc():
     """A bit-corrupted None/Up RGB PNG must NOT decode silently to wrong
     pixels on the fast path (round-4 advisor finding): the chunk CRC check
     bounces it to None so load semantics match PIL's strictness."""
-    from steganosaurus_tpu.io.image import _decode_png_fast, encode_png
+    from steganosaurus_jax.io.image import _decode_png_fast, encode_png
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 256, (24, 16, 3), dtype=np.uint8)
@@ -128,3 +128,51 @@ def test_fast_decode_rejects_corrupted_crc():
     corrupt = bytearray(data)
     corrupt[30] ^= 0x01
     assert _decode_png_fast(bytes(corrupt)) is None
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (33, 17), (256, 384), (1080, 1920)])
+def test_image_size_from_ihdr(tmp_path, hw):
+    """image_size reads a PNG's IHDR (width, height) without decoding, and
+    agrees with PIL; non-PNG files still go through PIL."""
+    h, w = hw
+    path = tmp_path / "x.png"
+    image_io.save_png(str(path), np.zeros((h, w, 3), np.uint8))
+    assert image_io.image_size(str(path)) == (w, h)
+    with Image.open(path) as im:
+        assert im.size == (w, h)
+    bmp = tmp_path / "x.bmp"
+    Image.fromarray(np.zeros((h, w, 3), np.uint8)).save(bmp)
+    assert image_io.image_size(str(bmp)) == (w, h)
+
+
+def test_cli_embed_extract_without_pil(tmp_path, monkeypatch, capsysbinary):
+    """The main path needs no Pillow: embed/extract of a save_png cover with
+    PIL unimportable, and a clear StegoError for a file outside the
+    built-in PNG subset."""
+    import base64
+    import sys
+
+    from steganosaurus_jax import cli
+    from steganosaurus_jax.pipeline.errors import StegoError
+
+    rng = np.random.default_rng(5)
+    base = np.linspace(150, 230, 192)[None, :, None]
+    cover = np.clip(base + rng.integers(-12, 13, (128, 192, 3)), 0, 255)
+    host, stego = tmp_path / "host.png", tmp_path / "stego.png"
+    image_io.save_png(str(host), cover.astype(np.uint8))
+    bmp = tmp_path / "cover.bmp"
+    Image.fromarray(cover.astype(np.uint8)).save(bmp)
+    key = base64.b64encode(bytes(range(32))).decode()
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    assert cli.main(["turtlefft", "embed", "--in", str(host), "--out",
+                     str(stego), "--secret", "no pillow", "--key", key]) == 0
+    capsysbinary.readouterr()
+    assert cli.main(["turtlefft", "extract", "--in", str(stego),
+                     "--key", key]) == 0
+    assert capsysbinary.readouterr().out.rstrip(b"\n") == b"no pillow"
+    with pytest.raises(StegoError, match="needs Pillow"):
+        image_io.load_rgb(str(bmp))
+    with pytest.raises(StegoError, match="needs Pillow"):
+        image_io.image_size(str(bmp))

@@ -5,8 +5,8 @@ import hashlib
 import numpy as np
 import pytest
 
-from steganosaurus_tpu import _native_loader, crypto
-from steganosaurus_tpu.keystream import _pure
+from steganosaurus_jax import _native_loader, crypto
+from steganosaurus_jax.keystream import _pure
 
 
 # Captured from the reference binary built with -DDEBUG=1:
@@ -122,7 +122,7 @@ def test_cache_reexpands_after_budget_limited_exhaustion(monkeypatch):
     """A cached exhaustion from a small step budget must not be treated as
     final: a later larger request computes a larger budget and must re-walk
     (near-capacity behavior cannot depend on call history)."""
-    import steganosaurus_tpu.keystream as ks
+    import steganosaurus_jax.keystream as ks
 
     kw, kr, kg, kb = crypto.derive_turtle_keys(crypto.sha256(b"re-expand"))
     args = (kw, (kr, kg, kb), 128, 128, 0.05, 0.45, 0.7, 0.0)
@@ -143,7 +143,7 @@ def test_cache_reexpands_after_budget_limited_exhaustion(monkeypatch):
 def test_expansion_cache_prefix_property():
     """The cache serves shorter requests as prefix views and re-expands for
     longer ones; every answer must equal a fresh uncached expansion."""
-    import steganosaurus_tpu.keystream as ks
+    import steganosaurus_jax.keystream as ks
 
     kw, kr, kg, kb = crypto.derive_turtle_keys(crypto.sha256(b"cache-test"))
     args = (kw, (kr, kg, kb), 128, 128, 0.05, 0.45, 0.7, 0.0)
@@ -172,7 +172,7 @@ def test_signed_unit_offsets_match_ks_jitter():
     """keystream.signed_unit_offsets must replay the KS two-byte jitter
     mapping exactly (same PRG blocks, big-endian int16 / 32768) so the
     alpha-spread draw is a documented, testable function of its key."""
-    from steganosaurus_tpu.keystream import KS, signed_unit_offsets
+    from steganosaurus_jax.keystream import KS, signed_unit_offsets
 
     key = bytes(range(32))
     n = 1000
@@ -227,7 +227,7 @@ def test_visited_chaining_native_pure_equality():
 def _fresh_expand(tmp_path, monkeypatch, subdir, **kw):
     """turtle_expand with an isolated disk cache dir and a CLEARED in-memory
     cache (simulating a cold process)."""
-    import steganosaurus_tpu.keystream as ks_mod
+    import steganosaurus_jax.keystream as ks_mod
 
     monkeypatch.setenv("STEGANOSAURUS_WALK_CACHE", str(tmp_path / subdir))
     ks_mod._CACHE.clear()
@@ -249,14 +249,14 @@ def test_disk_cache_hit_serves_identical_expansion(tmp_path, monkeypatch):
         np.testing.assert_array_equal(a, b)
     # a hit must not re-run the sequential walk: generous 10x margin on I/O
     assert hit_time < 0.5
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     assert len(list(diskcache.cache_dir().glob("*.walk"))) == 1
 
 
 def test_disk_cache_miss_on_different_key(tmp_path, monkeypatch):
     _fresh_expand(tmp_path, monkeypatch, "c")
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     _fresh_expand(tmp_path, monkeypatch, "c", density=0.6)  # different params
     assert len(list(diskcache.cache_dir().glob("*.walk"))) == 2
@@ -264,7 +264,7 @@ def test_disk_cache_miss_on_different_key(tmp_path, monkeypatch):
 
 def test_disk_cache_corruption_self_heals(tmp_path, monkeypatch):
     first = _fresh_expand(tmp_path, monkeypatch, "c")
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     [f] = diskcache.cache_dir().glob("*.walk")
     raw = bytearray(f.read_bytes())
@@ -279,7 +279,7 @@ def test_disk_cache_corruption_self_heals(tmp_path, monkeypatch):
 
 
 def test_disk_cache_truncation_and_bad_magic(tmp_path, monkeypatch):
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     monkeypatch.setenv("STEGANOSAURUS_WALK_CACHE", str(tmp_path / "d"))
     key = ("x", 1)
@@ -295,7 +295,7 @@ def test_disk_cache_truncation_and_bad_magic(tmp_path, monkeypatch):
 
 
 def test_disk_cache_disabled_by_env(tmp_path, monkeypatch):
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     monkeypatch.setenv("STEGANOSAURUS_WALK_CACHE", "0")
     assert diskcache.cache_dir() is None
@@ -304,7 +304,7 @@ def test_disk_cache_disabled_by_env(tmp_path, monkeypatch):
 
 
 def test_disk_cache_header_walk(tmp_path, monkeypatch):
-    import steganosaurus_tpu.keystream as ks_mod
+    import steganosaurus_jax.keystream as ks_mod
 
     monkeypatch.setenv("STEGANOSAURUS_WALK_CACHE", str(tmp_path / "h"))
     args = (b"w" * 32, (b"1" * 32, b"2" * 32, b"3" * 32), 128, 128,
@@ -315,6 +315,6 @@ def test_disk_cache_header_walk(tmp_path, monkeypatch):
     second = ks_mod.header_walk_with_visited(*args)
     for a, b in zip(first, second):
         np.testing.assert_array_equal(a, b)
-    from steganosaurus_tpu.keystream import diskcache
+    from steganosaurus_jax.keystream import diskcache
 
     assert len(list(diskcache.cache_dir().glob("*.walk"))) == 1

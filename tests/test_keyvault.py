@@ -18,7 +18,7 @@ import time
 import numpy as np
 import pytest
 
-from steganosaurus_tpu import _native_loader, crypto
+from steganosaurus_jax import _native_loader, crypto
 
 
 def _vault_lib():
@@ -97,9 +97,9 @@ def test_fallback_keys_cover_same_interface():
 _CHILD = textwrap.dedent("""
     import sys, time
     import numpy as np
-    from steganosaurus_tpu.config import Params
-    from steganosaurus_tpu.pipeline.embed import embed_array
-    from steganosaurus_tpu.pipeline.extract import extract_array
+    from steganosaurus_jax.config import Params
+    from steganosaurus_jax.pipeline.embed import embed_array
+    from steganosaurus_jax.pipeline.extract import extract_array
 
     MK = bytes(range(32))
     SALT = bytes(range(100, 116))

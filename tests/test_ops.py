@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.ops import bits as bit_ops
-from steganosaurus_tpu.ops import ecc, mask, phase, stats
+from steganosaurus_jax.ops import bits as bit_ops
+from steganosaurus_jax.ops import ecc, mask, phase, stats
 
 
 # ---------------------------------------------------------------------- ECC

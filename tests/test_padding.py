@@ -15,11 +15,11 @@ below)."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.pipeline import header as header_mod
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.extract import extract_array
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.pipeline import header as header_mod
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.extract import extract_array
 
 MK = bytes(range(32))
 P_PAD = Params(pbkdf2_iter=1000, pad_quantum=256)
@@ -52,7 +52,7 @@ def test_padded_clen_quantizes(cover):
     """Secrets of different lengths inside one bucket produce IDENTICAL
     sealed stream sizes (the length-leak the mode exists to close), and
     round-trip. The wire clen equals the padded plaintext length."""
-    from steganosaurus_tpu import crypto
+    from steganosaurus_jax import crypto
 
     p = Params(pbkdf2_iter=1000, pad_quantum=128)
     salt = bytes([7]) * 16
@@ -94,7 +94,7 @@ def test_reference_binary_interop_degrades(cover, tmp_path, reference_bin):
     a padded stego (same walk, same AEAD — it succeeds), but its output
     truncates at the BE32 length prefix's leading NUL bytes, so the
     secret never appears in its stdout. Degraded, not crashed."""
-    from steganosaurus_tpu.io import image as image_io
+    from steganosaurus_jax.io import image as image_io
     from tests.test_reference_parity import _run
 
     secret = b"hidden-behind-framing"
@@ -123,7 +123,7 @@ def test_channel_report_pad_rs_layout(cover):
     """channel_report's RS post-ECC decode must use the PADDED clen (the
     on-wire message size), not the secret length — clean padded RS
     batches read back with zero post-ECC BER."""
-    from steganosaurus_tpu.pipeline.batch import channel_report, embed_batch
+    from steganosaurus_jax.pipeline.batch import channel_report, embed_batch
 
     p = Params(pbkdf2_iter=1000, pad_quantum=128, rs=True)
     secrets, salts = [b"pad-rs-ber" * 5], [bytes([9]) * 16]
@@ -139,7 +139,7 @@ def test_padded_verify_hint_covers_fused_pass(cover, monkeypatch):
     """embed_batch(verify=True) must hint the PADDED clen: the verify
     extraction's fused pass covers the payload and no corrected
     payload-only pass (with_header=False) is dispatched."""
-    from steganosaurus_tpu.pipeline import batch as pbm
+    from steganosaurus_jax.pipeline import batch as pbm
 
     second_passes = []
     orig = pbm._ExtractJob._dispatch_pass
@@ -160,13 +160,13 @@ def test_requantization_report_rs_and_pad(cover):
     """requantization_noise_report builds its frame through the same
     seal/FEC path as the embeds (header.seal_stream + frame_bits), so it
     works — with the right frame sizes — under rs and pad_quantum."""
-    from steganosaurus_tpu.utils.channel import requantization_noise_report
+    from steganosaurus_jax.utils.channel import requantization_noise_report
 
     rep = requantization_noise_report(
         cover, b"m" * 600, master_key=MK,
         params=Params(pbkdf2_iter=1000, rs=True, pad_quantum=128))
     # RS frame: 912 header bits + coded bits of the PADDED message
-    from steganosaurus_tpu.ops import rs as rs_mod
+    from steganosaurus_jax.ops import rs as rs_mod
     assert rep["n_bins"] == 912 + rs_mod.coded_len(
         header_mod.padded_len(600, 128) + 16) * 8
     assert rep["raw_flip_rate_payload"] < 0.5

@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from steganosaurus_tpu import spectral
-from steganosaurus_tpu.ops import phase as phase_ops
-from steganosaurus_tpu.parallel import batch as pbatch
-from steganosaurus_tpu.parallel import fft_dist
+from steganosaurus_jax import spectral
+from steganosaurus_jax.ops import phase as phase_ops
+from steganosaurus_jax.parallel import batch as pbatch
+from steganosaurus_jax.parallel import fft_dist
 
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
@@ -213,8 +213,8 @@ def test_mesh_composed_piw_rs_qim_roundtrip():
     shards — salt-keyed per-image walks + interleaved RS(255,223) FEC +
     dithered phase QIM — embeds under the mesh and extracts under plain
     defaults (wire modes are self-describing via header flags)."""
-    from steganosaurus_tpu.config import Params
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.config import Params
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     rng = np.random.default_rng(11)
     mesh = pbatch.make_mesh(8)

@@ -15,14 +15,14 @@ holds (asserted below) while a few pixels differ.
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.pipeline import header as header_mod
-from steganosaurus_tpu.pipeline import qim as qim_mod
-from steganosaurus_tpu.pipeline.batch import (channel_report, embed_batch,
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.pipeline import header as header_mod
+from steganosaurus_jax.pipeline import qim as qim_mod
+from steganosaurus_jax.pipeline.batch import (channel_report, embed_batch,
                                               extract_batch)
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.extract import extract_array
-from steganosaurus_tpu.pipeline.errors import StegoError
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.extract import extract_array
+from steganosaurus_jax.pipeline.errors import StegoError
 
 MK = bytes(range(32))
 
@@ -106,7 +106,7 @@ def test_batch_matches_single_decode_and_nearly_pixels(cover):
     # and the two stegos are near-identical: the few boundary bins that
     # land in different (same-coset) lattice cells spread as low-amplitude
     # IFFT noise over all pixels
-    from steganosaurus_tpu.utils import metrics
+    from steganosaurus_jax.utils import metrics
 
     assert metrics.psnr(st_b, single.stego) > 40.0
     assert np.abs(st_b.astype(int) - single.stego.astype(int)).max() <= 4
@@ -127,7 +127,7 @@ def test_batch_roundtrip_modes(batch_covers):
 
 
 def test_batch_mesh_roundtrip(batch_covers):
-    from steganosaurus_tpu.parallel import batch as pbatch
+    from steganosaurus_jax.parallel import batch as pbatch
 
     mesh8 = pbatch.make_mesh(8)
     secrets = [bytes([65 + i]) * 40 for i in range(8)]
@@ -176,7 +176,7 @@ def test_qim_beats_hard_and_soft_psnr(cover):
     """The QIM energy claim (doc/ATTACKS.md §1b): at equal payload and equal
     decode margin (L=3 ~ alpha=0.5), QIM writes measurably less energy than
     both the hard and the minimal-energy soft write."""
-    from steganosaurus_tpu.utils import metrics
+    from steganosaurus_jax.utils import metrics
 
     secret = bytes(np.random.default_rng(5).integers(0, 256, 200,
                                                      dtype=np.uint8))
@@ -194,7 +194,7 @@ def test_qim_flattens_phase_histogram(cover):
     """The QIM stealth claim (doc/ATTACKS.md §2b): the keyed dither makes
     written-bin phases marginally uniform — the chi-square warden statistic
     collapses vs the hard write (measured ~48x on this cover/payload)."""
-    from steganosaurus_tpu.utils.steganalysis import phase_histogram_report
+    from steganosaurus_jax.utils.steganalysis import phase_histogram_report
 
     secret = bytes(np.random.default_rng(6).integers(0, 256, 200,
                                                      dtype=np.uint8))

@@ -10,13 +10,13 @@ import subprocess
 import numpy as np
 import pytest
 
-from steganosaurus_tpu import crypto
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.crypto import keywrap
-from steganosaurus_tpu.io import image as image_io
-from steganosaurus_tpu.pipeline.embed import embed
-from steganosaurus_tpu.pipeline.extract import extract
-from steganosaurus_tpu.pipeline.errors import StegoError
+from steganosaurus_jax import crypto
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.crypto import keywrap
+from steganosaurus_jax.io import image as image_io
+from steganosaurus_jax.pipeline.embed import embed
+from steganosaurus_jax.pipeline.extract import extract
+from steganosaurus_jax.pipeline.errors import StegoError
 
 ITER = "5000"  # keep PBKDF2 fast in tests; timing tests cover the default
 
@@ -61,12 +61,12 @@ def test_reference_embed_our_extract(reference_bin, host_png, tmp_path, dtype):
 @pytest.mark.parametrize("dtype", ["complex64", "complex128"])
 def test_our_embed_reference_extract(reference_bin, host_png, tmp_path, dtype):
     stego = tmp_path / "stego_ours.png"
-    embed(str(host_png), str(stego), "Round trip via TPU frame",
+    embed(str(host_png), str(stego), "Round trip via JAX frame",
           password="pp", params=Params(pbkdf2_iter=int(ITER), fft_dtype=dtype))
     r = _run([reference_bin, "extract", "--in", stego, "--pass", "pp",
               "--pbkdf2_iter", ITER])
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "Round trip via TPU frame"
+    assert r.stdout.strip() == "Round trip via JAX frame"
 
 
 def test_cross_decode_with_params_sweep(reference_bin, host_png, host_image,
@@ -80,8 +80,8 @@ def test_cross_decode_with_params_sweep(reference_bin, host_png, host_image,
     ~3%-per-key failure note in test_wrapped_key_interop_main_format) — and a
     parity test must be deterministic, not a channel-margin coin flip. All 16 probed salts pass
     today; the pin freezes one so any future failure is a real code change."""
-    from steganosaurus_tpu.io import image as image_io
-    from steganosaurus_tpu.pipeline.embed import embed_array
+    from steganosaurus_jax.io import image as image_io
+    from steganosaurus_jax.pipeline.embed import embed_array
 
     cases = [
         dict(alpha=0.22, density=0.5, rmin=0.08, rmax=0.40, jitter=0.0),
@@ -125,7 +125,7 @@ def test_512px_batch_cross_decode(reference_bin, tmp_path):
     """The bench headline size: a 512x512 stego produced by the BATCH device
     pipeline must extract bit-exactly with the reference binary, and a
     reference-embedded 512x512 stego must decode via extract_batch."""
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     rng = np.random.default_rng(9)
     base = np.linspace(150, 235, 512)

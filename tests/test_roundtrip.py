@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.extract import extract_array
-from steganosaurus_tpu.pipeline.errors import StegoError
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.extract import extract_array
+from steganosaurus_jax.pipeline.errors import StegoError
 
 FAST = dict(pbkdf2_iter=500)
 
@@ -161,7 +161,7 @@ def test_single_image_graphs_bucketed(small_image):
     """Two different secret lengths at one image size must share one compiled
     graph (4096-bit index bucketing in pipeline.device): the CLI path must
     not pay a fresh XLA compile per payload length."""
-    from steganosaurus_tpu.pipeline import device
+    from steganosaurus_jax.pipeline import device
 
     p = Params(**FAST)
     H, W = small_image.shape[:2]
@@ -227,8 +227,8 @@ def test_alpha_spread_roundtrip_and_amplitudes(host_image):
     because the decode half-plane rule never uses the written amplitude —
     and the measured per-bin write phases must match the keyed alpha_i draw
     (not concentrate at +-alpha)."""
-    from steganosaurus_tpu import crypto, keystream, spectral
-    from steganosaurus_tpu.pipeline import spread as spread_mod
+    from steganosaurus_jax import crypto, keystream, spectral
+    from steganosaurus_jax.pipeline import spread as spread_mod
 
     secret = bytes(range(120))
     salt = bytes(range(16))
@@ -267,8 +267,8 @@ def test_alpha_spread_roundtrip_and_amplitudes(host_image):
 
 
 def test_alpha_spread_validation():
-    from steganosaurus_tpu.pipeline import spread as spread_mod
-    from steganosaurus_tpu.pipeline.errors import StegoError
+    from steganosaurus_jax.pipeline import spread as spread_mod
+    from steganosaurus_jax.pipeline.errors import StegoError
 
     with pytest.raises(StegoError, match="alpha_spread"):
         spread_mod.validate(Params(alpha_spread=-0.1))
@@ -298,8 +298,8 @@ def test_per_image_walk_roundtrip_and_decorrelated_bins(host_image):
     key with different salts select INDEPENDENT payload bin sets — overlap
     drops from 100% (shared walk: identical bins every image, the
     correlation attack's precondition) to the random-coincidence rate."""
-    from steganosaurus_tpu import crypto, keystream, spectral
-    from steganosaurus_tpu.pipeline import header as header_mod
+    from steganosaurus_jax import crypto, keystream, spectral
+    from steganosaurus_jax.pipeline import header as header_mod
 
     p = Params(per_image_walk=True, **FAST)
     secret = bytes(range(100))
@@ -346,7 +346,7 @@ def test_per_image_walk_roundtrip_and_decorrelated_bins(host_image):
 
 
 def test_per_image_walk_excludes_cover_dependent_path(small_image):
-    from steganosaurus_tpu.pipeline.errors import StegoError
+    from steganosaurus_jax.pipeline.errors import StegoError
 
     p = Params(per_image_walk=True, cover_dependent_path=True, **FAST)
     with pytest.raises(StegoError, match="mutually exclusive"):
@@ -383,7 +383,7 @@ def test_stealth_profile(host_image):
     extractor needs only the jitter value (everything else auto-detected
     or embed-side-only); and the warden-view spike statistic measurably
     collapses vs the default write."""
-    from steganosaurus_tpu.utils.steganalysis import phase_histogram_report
+    from steganosaurus_jax.utils.steganalysis import phase_histogram_report
 
     p = Params.stealth(**FAST)
     secret = bytes(range(160))

@@ -6,7 +6,7 @@ erasure decoding, and the layout determinism the wire format relies on."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.ops import rs
+from steganosaurus_jax.ops import rs
 
 RNG = np.random.default_rng(0xEC0DE)
 
@@ -257,7 +257,7 @@ def test_native_matches_pure_codec():
     verdicts, and soft-ladder outcomes must be identical. Skipped when the
     native library isn't built (the dispatch then trivially agrees)."""
     import os
-    from steganosaurus_tpu import _native_loader
+    from steganosaurus_jax import _native_loader
 
     lib = _native_loader.get()
     if lib is None or not getattr(lib, "has_rs", False):

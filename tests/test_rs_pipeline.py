@@ -10,12 +10,12 @@ RS stegos (its Rep-7 payload walk length diverges -> AEAD reject)."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.ops import rs as rs_mod
-from steganosaurus_tpu.pipeline import header as header_mod
-from steganosaurus_tpu.pipeline.embed import embed_array, frame_bits
-from steganosaurus_tpu.pipeline.extract import extract_array
-from steganosaurus_tpu.pipeline.errors import StegoError
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.ops import rs as rs_mod
+from steganosaurus_jax.pipeline import header as header_mod
+from steganosaurus_jax.pipeline.embed import embed_array, frame_bits
+from steganosaurus_jax.pipeline.extract import extract_array
+from steganosaurus_jax.pipeline.errors import StegoError
 
 MK = bytes(range(32))
 P_RS = Params(pbkdf2_iter=1000, rs=True)
@@ -114,7 +114,7 @@ def _batch_secrets(rng=None):
 
 
 def test_batch_roundtrip_hint_and_autodetect(batch_covers):
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     secrets = _batch_secrets()
     r = embed_batch(batch_covers, secrets, master_key=MK, params=P_RS)
@@ -128,7 +128,7 @@ def test_batch_roundtrip_hint_and_autodetect(batch_covers):
 
 
 def test_batch_verify_channel_and_isolation(batch_covers):
-    from steganosaurus_tpu.pipeline.batch import (channel_report,
+    from steganosaurus_jax.pipeline.batch import (channel_report,
                                                   embed_batch, extract_batch)
 
     secrets = _batch_secrets()
@@ -150,7 +150,7 @@ def test_batch_verify_channel_and_isolation(batch_covers):
 
 
 def test_batch_rs_piw(batch_covers):
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     secrets = _batch_secrets()
     p = Params(pbkdf2_iter=1000, rs=True, per_image_walk=True)
@@ -162,8 +162,8 @@ def test_batch_rs_piw(batch_covers):
 @pytest.mark.skipif(
     len(__import__("jax").devices()) < 8, reason="needs 8 devices")
 def test_batch_rs_over_mesh(batch_covers):
-    from steganosaurus_tpu.parallel import batch as pbatch
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.parallel import batch as pbatch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     mesh = pbatch.make_mesh(8)
     imgs = np.concatenate([batch_covers, batch_covers[:2]], axis=0)  # B=8
@@ -175,7 +175,7 @@ def test_batch_rs_over_mesh(batch_covers):
 
 
 def test_stream_rs(batch_covers):
-    from steganosaurus_tpu.pipeline.stream import embed_stream, extract_stream
+    from steganosaurus_jax.pipeline.stream import embed_stream, extract_stream
 
     secrets = _batch_secrets()
     feeds = [(batch_covers, secrets), (batch_covers, secrets[::-1])]
@@ -191,7 +191,7 @@ def test_soft_fallback_rs_batch(batch_covers):
     fallback path executes (the recovery itself is channel-dependent; the
     assertion is that hard-pass failures do not crash and anything the
     fallback recovers is correct)."""
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     secrets = _batch_secrets()
     r = embed_batch(batch_covers, secrets, master_key=MK, params=P_RS)
@@ -208,7 +208,7 @@ def test_soft_fallback_rs_batch(batch_covers):
 def test_reference_binary_fails_closed(cover, tmp_path, reference_bin):
     """The stock reference binary must NOT extract an RS stego (it would
     read the payload as Rep-7 at the wrong length) — and must not crash."""
-    from steganosaurus_tpu.io import image as image_io
+    from steganosaurus_jax.io import image as image_io
     from tests.test_reference_parity import _run
 
     stego = tmp_path / "rs_stego.png"
@@ -225,8 +225,8 @@ def test_rs_inline_soft_conf(monkeypatch):
     per-coded-byte confidences (errors-and-erasures, ops/rs.py) with the
     retry pass stubbed out — the conf words ride the same fused pull
     (parallel.batch corner_extract_fused_core with_soft, rep=1)."""
-    from steganosaurus_tpu.pipeline import batch as pbm
-    from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+    from steganosaurus_jax.pipeline import batch as pbm
+    from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
     rng = np.random.default_rng(1)
     cover = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)

@@ -9,10 +9,10 @@ import json
 import numpy as np
 import pytest
 
-from steganosaurus_tpu import crypto
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.io import image as image_io
-from steganosaurus_tpu.pipeline.serve import serve_loop
+from steganosaurus_jax import crypto
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.io import image as image_io
+from steganosaurus_jax.pipeline.serve import serve_loop
 
 MK = bytes(range(32))
 P = Params(pbkdf2_iter=500)
@@ -97,7 +97,7 @@ def test_batch_ops_and_per_item_error_isolation(tmp_path):
 
 def test_cli_serve_wiring(tmp_path, monkeypatch, capsys):
     """cli.main routes `serve` to the loop (stdin/stdout), key via --key."""
-    from steganosaurus_tpu import cli
+    from steganosaurus_jax import cli
 
     cov = _cover(tmp_path, "c.png", seed=5)
     out = str(tmp_path / "s.png")
@@ -136,7 +136,7 @@ def test_stats_and_latency_fields(tmp_path):
 
 
 def test_serve_requires_key():
-    from steganosaurus_tpu import cli
+    from steganosaurus_jax import cli
 
     assert cli.parse_args(["turtlefft", "serve"]) is None
     assert cli.parse_args(["turtlefft", "serve", "--pass", "pw"]) is not None
@@ -145,7 +145,7 @@ def test_serve_requires_key():
 def test_serve_warmup_flag_and_ready_field(tmp_path):
     """--warmup HxW pre-compiles shape classes before the ready line; the
     ready response lists them. Parser rejects malformed values."""
-    from steganosaurus_tpu import cli
+    from steganosaurus_jax import cli
 
     a = cli.parse_args(["turtlefft", "serve", "--pass", "pw",
                         "--warmup", "64x48", "--warmup", "128X96:4096"])
@@ -285,9 +285,9 @@ def test_serve_malformed_hint_types_keep_worker_alive(tmp_path):
 def test_warmup_specs_validated_at_parse_and_runtime():
     """Non-positive --warmup dims are rejected at parse time; a bad spec
     reaching serve_loop raises StegoError, not a numpy traceback."""
-    from steganosaurus_tpu.cli import parse_args
-    from steganosaurus_tpu.pipeline.serve import _warmup_shape
-    from steganosaurus_tpu.pipeline.errors import StegoError
+    from steganosaurus_jax.cli import parse_args
+    from steganosaurus_jax.pipeline.serve import _warmup_shape
+    from steganosaurus_jax.pipeline.errors import StegoError
 
     for bad in ("-1x64", "0x0", "64x-2", "64x48:0", "64x48:-6"):
         assert parse_args(["turtlefft", "serve", "--pass", "pw",
@@ -322,7 +322,7 @@ def test_serve_survives_unexpected_runtime_error(tmp_path, monkeypatch,
     """The never-raise contract covers ANY exception type — a transient
     XLA RuntimeError (round-4 advisor medium) becomes one ok:false reply
     with a stderr traceback, not a dead worker."""
-    import steganosaurus_tpu.pipeline.serve as serve_mod
+    import steganosaurus_jax.pipeline.serve as serve_mod
 
     def boom(*a, **k):
         raise RuntimeError("RESOURCE_EXHAUSTED: transient device hiccup")

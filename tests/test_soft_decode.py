@@ -8,12 +8,12 @@ them (56% -> 12.5% failure)."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.ops import ecc
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.extract import extract_array
-from steganosaurus_tpu.pipeline.errors import StegoError
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.ops import ecc
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.extract import extract_array
+from steganosaurus_jax.pipeline.errors import StegoError
 
 MK = bytes(range(32))
 HARD = Params(soft_decode_fallback=False)
@@ -119,7 +119,7 @@ def test_bucket_sel_shapes():
     compiles at most log2(B) recovery-module variants instead of one per
     distinct failure count (measured: per-count compiles cut the bench's
     rotating-salt stage from ~220 to 9 img/s)."""
-    from steganosaurus_tpu.pipeline.batch import _bucket_sel
+    from steganosaurus_jax.pipeline.batch import _bucket_sel
 
     for idxs, B, want in (([3], 64, 1), ([3, 5], 64, 2), ([1, 2, 3], 64, 4),
                           ([0, 1, 2, 3, 4], 64, 8), ([0, 1, 2, 3, 4], 6, 6),
@@ -142,7 +142,7 @@ def test_inline_soft_recovers_without_retry_pass(noise_cover, heavy_secret,
     quantization noise), so the contract is: inline recovers strictly
     more than hard, the retry pass sees ONLY what inline couldn't fix,
     and full recovery is at least inline's."""
-    from steganosaurus_tpu.pipeline import batch as pbm
+    from steganosaurus_jax.pipeline import batch as pbm
 
     B = 8
     covers = np.stack([noise_cover] * B)
@@ -199,7 +199,7 @@ def test_corrupt_clen_does_not_blow_pass_size(noise_cover, heavy_secret,
     cross-checks the probe pass's matched-filter header. Without the
     cross-check the pass covers cap_bits (~101k slots here, a fresh host
     walk expansion); with it, the honest ~15k-slot bucket."""
-    from steganosaurus_tpu.pipeline import batch as pbm
+    from steganosaurus_jax.pipeline import batch as pbm
 
     B = 4
     covers = np.stack([noise_cover] * B)
@@ -230,7 +230,7 @@ def test_soft_fallback_mesh_path(noise_cover, heavy_secret):
     sections from the mesh-sharded dense decision values
     (corner_bits_core with_values), so AEAD failures resolve without
     routing to single-chip retry cores."""
-    from steganosaurus_tpu.parallel.batch import make_mesh
+    from steganosaurus_jax.parallel.batch import make_mesh
 
     B = 8
     covers = np.stack([noise_cover] * B)

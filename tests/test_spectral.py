@@ -1,8 +1,9 @@
 """Spectral engine tests: sign convention, rounding parity, padding, medians."""
 
 import numpy as np
+import pytest
 
-from steganosaurus_tpu import spectral
+from steganosaurus_jax import spectral
 
 
 def test_fft_reference_sign_convention():
@@ -81,28 +82,6 @@ def test_cover_hash_features_quantization():
     assert feat[0, 0, 0] == 3 and feat[0, 1, 1] == 7 and feat[0, 2, 2] == 0
 
 
-def test_corner_pallas_matches_einsum():
-    """The Pallas stage-1 kernel (kept as the measured XLA comparison,
-    doc/PAPER.md 5a) must stay bit-compatible with the production bf16
-    einsum pair; interpret mode exercises it without TPU hardware."""
-    import jax.numpy as jnp
-
-    from steganosaurus_tpu.spectral import corner, corner_pallas
-
-    P, H, W, Kx = 3, 64, 256, 128
-    rng = np.random.default_rng(11)
-    planes = rng.integers(0, 256, (P, H, W)).astype(np.float32)
-    exr, exi = corner._dft_tables(W, Kx)
-    ar, ai = corner_pallas.fwd_stage1(planes, exr, exi, interpret=True)
-    ar2 = corner._mm("phw,xw->phx", jnp.asarray(planes), jnp.asarray(exr),
-                     "bf16")
-    ai2 = corner._mm("phw,xw->phx", jnp.asarray(planes), jnp.asarray(exi),
-                     "bf16")
-    scale = float(jnp.max(jnp.abs(ar2)))
-    assert float(jnp.max(jnp.abs(ar - ar2))) <= 1e-5 * scale
-    assert float(jnp.max(jnp.abs(ai - ai2))) <= 1e-5 * scale
-
-
 def test_factored_corner_matches_dense(monkeypatch):
     """The four-step factored corner transforms (axis_plan != 0) must match
     the dense pruned-DFT matmuls to f32 roundoff in both directions — the
@@ -112,11 +91,10 @@ def test_factored_corner_matches_dense(monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from steganosaurus_tpu.spectral import corner
+    from steganosaurus_jax.spectral import corner
 
     H, W, Ky, Kx = 512, 768, 256, 256
-    # the factored path is opt-in (measured slower end-to-end, PAPER §5a);
-    # force it on for this equivalence check
+    # the factored path is opt-in; force it on for this equivalence check
     monkeypatch.setenv("STEGANOSAURUS_CORNER_FACTORED", "1")
     corner.axis_plan.cache_clear()
     assert corner.axis_plan(W, Kx) == 128
@@ -166,7 +144,7 @@ def test_factored_corner_matches_dense(monkeypatch):
 
 def test_split_fwd_y_band_semantics(monkeypatch):
     """mix_split's forward stage-2: columns x < X0 must EXACTLY equal the
-    all-HIGH stage (the hazard band keeps its full accuracy), columns
+    all-ACCURATE stage (the hazard band keeps its full accuracy), columns
     x >= X0 must EXACTLY equal the true-bf16 stage (operand-rounded, f32
     accumulated) — the split is a per-column selection between the two
     existing modes, never a third numeric."""
@@ -174,7 +152,7 @@ def test_split_fwd_y_band_semantics(monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from steganosaurus_tpu.spectral import corner
+    from steganosaurus_jax.spectral import corner
 
     H, W, Ky, Kx = 384, 512, 256, 256
     monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", "mix_split")
@@ -187,8 +165,8 @@ def test_split_fwd_y_band_semantics(monkeypatch):
     tabs = corner.dft_tables_device(H, Ky, W, Kx)
     got_r, got_i = corner.fwd_corner(jnp.asarray(planes), Ky, Kx, tabs, prec)
 
-    HIGH = jax.lax.Precision.HIGH
-    for band_p, sl in ((HIGH, slice(0, X0)), ("bf16", slice(X0, None))):
+    for band_p, sl in ((corner.ACCURATE, slice(0, X0)),
+                       ("bf16", slice(X0, None))):
         ref_p = (prec[0], band_p, prec[2], prec[3])
         want_r, want_i = corner.fwd_corner(jnp.asarray(planes), Ky, Kx,
                                            tabs, ref_p)
@@ -200,7 +178,7 @@ def test_split_fwd_y_band_semantics(monkeypatch):
 
 def test_adaptive_fwd_y_band_semantics(monkeypatch):
     """mix_adaptive's forward stage-2: per (image, plane), the X0 columns
-    with the LARGEST stage-1 energy must EXACTLY equal the all-HIGH stage
+    with the LARGEST stage-1 energy must EXACTLY equal the all-ACCURATE stage
     and every other column EXACTLY the true-bf16 stage — an exact per-column
     selection between the two existing numerics, with the band placed by
     measured energy instead of the static low-x prior (so covers whose
@@ -209,7 +187,7 @@ def test_adaptive_fwd_y_band_semantics(monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    from steganosaurus_tpu.spectral import corner
+    from steganosaurus_jax.spectral import corner
 
     H, W, Ky, Kx = 384, 512, 256, 256
     monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", "mix_adaptive")
@@ -226,7 +204,7 @@ def test_adaptive_fwd_y_band_semantics(monkeypatch):
     tabs = corner.dft_tables_device(H, Ky, W, Kx)
     got_r, got_i = corner.fwd_corner(jnp.asarray(planes), Ky, Kx, tabs, prec)
 
-    HIGH = jax.lax.Precision.HIGH
+    HIGH = corner.ACCURATE
     results = {}
     for band_p in (HIGH, "bf16"):
         ref_p = (prec[0], band_p, prec[2], prec[3])
@@ -258,3 +236,33 @@ def test_adaptive_fwd_y_band_semantics(monkeypatch):
                     np.asarray(got_i[b, p][..., mask]),
                     np.asarray(want_i[b, p][..., mask]))
     assert n_checked_moved >= 3  # the planted texture moved the band
+
+
+@pytest.mark.parametrize("mode,want", [
+    ("mix_adaptive", ("bf16", "adaptive", "bf16", "bf16")),
+    ("mix_split", ("bf16", "split", "bf16", "bf16")),
+    ("mix", ("bf16", "ACCURATE", "bf16", "bf16")),
+    ("mix3", ("bf16", "ACCURATE", "bf16", "bf16")),
+    ("mix_conservative", ("bf16", "ACCURATE", "ACCURATE", "ACCURATE")),
+    ("mix2", ("bf16", "ACCURATE", "bf16", "ACCURATE")),
+    ("high", ("ACCURATE",) * 4),
+    ("bf16", ("bf16",) * 4),
+    ("highest", ("HIGHEST",) * 4),
+])
+def test_precision_modes_map_to_explicit_precisions(monkeypatch, mode, want):
+    """Every mode resolves to bf16, the explicit f32-faithful dot algorithm
+    corner.ACCURATE (bf16_3x — never Precision.HIGH, which is one TF32 pass
+    on the GPU) or HIGHEST; the default is mix_adaptive."""
+    import jax
+
+    from steganosaurus_jax.spectral import corner
+
+    assert corner.ACCURATE == jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+    names = {"ACCURATE": corner.ACCURATE,
+             "HIGHEST": jax.lax.Precision.HIGHEST}
+    monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", mode)
+    got = corner.precision()
+    assert got == tuple(names.get(w, w) for w in want)
+    assert jax.lax.Precision.HIGH not in got
+    monkeypatch.delenv("STEGANOSAURUS_MM_PRECISION")
+    assert corner.precision() == ("bf16", "adaptive", "bf16", "bf16")

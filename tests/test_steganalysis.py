@@ -5,9 +5,9 @@ alone, and the alpha_spread mitigation must measurably dilute it."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.utils.steganalysis import phase_histogram_report
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.utils.steganalysis import phase_histogram_report
 
 FAST = dict(pbkdf2_iter=500)
 
@@ -49,7 +49,7 @@ def test_pairwise_harmonic_attack_and_piw_defense(cover):
     """Second-order warden (ATTACKS §4a): the cross-image phase-difference
     harmonic statistic detects shared-walk embeds (hard AND QIM — where
     harmonic 2L fingers the level), and per-image walks defeat it."""
-    from steganosaurus_tpu.utils.steganalysis import (
+    from steganosaurus_jax.utils.steganalysis import (
         pairwise_difference_report)
 
     rng = np.random.default_rng(7)
@@ -84,7 +84,7 @@ def test_magnitude_conditioned_report(cover):
     magnitude-blind, reference mag_ok disabled :797-799), conditioning adds
     no power over the marginal test, and the stealth profile stays at the
     clean cover's noise floor even when stratified."""
-    from steganosaurus_tpu.utils.steganalysis import (
+    from steganosaurus_jax.utils.steganalysis import (
         magnitude_conditioned_report)
 
     secret = bytes(range(200))
@@ -113,7 +113,7 @@ def test_requantization_noise_report(cover):
     ~1/magnitude, raw flip rates must sit far under the ECC budget at
     defaults, and QIM-10's tighter margin must show a higher (but still
     ECC-absorbable) payload flip rate."""
-    from steganosaurus_tpu.utils.channel import requantization_noise_report
+    from steganosaurus_jax.utils.channel import requantization_noise_report
 
     secret = bytes(range(200))
     mk = bytes(range(32))
@@ -152,7 +152,7 @@ def test_collusion_report_attack_and_piw_defense(cover):
     across a collection of DIFFERENT covers under one key detects
     shared-walk embeds — hard write at low harmonics, QIM at 2L — and
     per-image walks crush the statistic toward the header-only floor."""
-    from steganosaurus_tpu.utils.steganalysis import collusion_report
+    from steganosaurus_jax.utils.steganalysis import collusion_report
 
     rng = np.random.default_rng(11)
     base = np.linspace(170, 220, 256)
@@ -196,7 +196,7 @@ def test_robustness_report_awgn_and_jpeg(cover):
     majority, heavy AWGN kills recovery, and JPEG recompression destroys
     the global-FFT phase channel at any tested quality (the honest
     lossless-PNG-only answer, stated with a measurement)."""
-    from steganosaurus_tpu.utils.channel import robustness_report
+    from steganosaurus_jax.utils.channel import robustness_report
 
     mk = bytes(range(32))
     rep = robustness_report(cover, bytes(range(64)), Params(),
@@ -214,7 +214,7 @@ def test_robustness_report_stealth_params(cover):
     """robustness_report must work for the recommended stealth profile
     (per-image walks): the recovery booleans are measured, raw BER is
     None (channel_report supports the shared-walk corner path only)."""
-    from steganosaurus_tpu.utils.channel import robustness_report
+    from steganosaurus_jax.utils.channel import robustness_report
 
     rep = robustness_report(cover, b"stealth-robust",
                             Params.stealth(**FAST),
@@ -230,7 +230,7 @@ def test_robustness_report_stealth_params(cover):
 
 
 def test_srm_features_shape_and_determinism():
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     covers = sa.srm_corpus(2, hw=(128, 128), seed=3)
     f1 = sa.srm_features(covers[0])
@@ -245,7 +245,7 @@ def test_srm_report_blind_on_identical_and_detects_noise():
     """Power calibration: identical pairs are exactly chance; +-1-per-pixel
     iid noise (louder than any embed here) must be detected on a
     same-source corpus."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     n = 32
     covers = sa.srm_corpus(n, hw=(128, 128), seed=5, kind="gradient")
@@ -263,9 +263,9 @@ def test_srm_detects_hard_write_and_corpus_kinds():
     """The default hard write at heavy payload is spatially LOUD (measured
     AUC 1.0 at 240 B / 256^2 in doc/ATTACKS.md 2d); assert a safely weaker
     bound on the smaller/faster test configuration."""
-    from steganosaurus_tpu.config import Params
-    from steganosaurus_tpu.pipeline.batch import embed_batch
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.config import Params
+    from steganosaurus_jax.pipeline.batch import embed_batch
+    from steganosaurus_jax.utils import steganalysis as sa
 
     n = 16
     covers = sa.srm_corpus(n, hw=(128, 128), seed=9, kind="gradient")
@@ -286,7 +286,7 @@ def test_srm_photo_corpus_crops():
     """The natural-photo family (JPEG-decoded grace_hopper crops): shape/
     dtype contract, seed determinism, crops differ, and oversize crops are
     rejected with a clear error."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     a = sa.srm_corpus(6, hw=(128, 128), seed=3, kind="photo")
     b = sa.srm_corpus(6, hw=(128, 128), seed=3, kind="photo")
@@ -318,7 +318,7 @@ def test_cross_channel_alignment_physics(correlated_cover):
     """Correlated covers show strong cross-plane phase alignment; iid-noise
     covers show none — the precondition that decides which cover classes
     this warden can attack at all."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     r = sa.cross_channel_report(correlated_cover)
     assert min(r["align_z"].values()) > 6, r["align_z"]
@@ -333,7 +333,7 @@ def test_cross_channel_detects_write_even_under_stealth(correlated_cover):
     inflating the conditional misalignment rate. Unlike the histogram
     wardens, the stealth profile does NOT flatten this on correlated
     covers (QIM still randomizes the written phase)."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     rng = np.random.default_rng(8)
     secret = bytes(rng.integers(0, 256, 120, dtype=np.uint8))
@@ -351,8 +351,8 @@ def test_cross_channel_corpus_blind_on_iid_channels():
     features to key on — AUC must sit near chance. The same protocol on
     the photo family measures AUC 1.0 (doc/ATTACKS.md §2e); that heavy
     run is documented, not asserted here."""
-    from steganosaurus_tpu.pipeline.batch import embed_batch
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.pipeline.batch import embed_batch
+    from steganosaurus_jax.utils import steganalysis as sa
 
     n = 16
     p = Params().stealth()
@@ -378,7 +378,7 @@ def test_cross_channel_features_are_plain_resultants():
     conditioning populations that scale dims 3-5."""
     import math
 
-    from steganosaurus_tpu.utils.steganalysis import (
+    from steganosaurus_jax.utils.steganalysis import (
         cross_channel_features, cross_channel_report)
 
     rng = np.random.default_rng(3)
@@ -394,7 +394,7 @@ def test_cross_channel_features_are_plain_resultants():
 def test_report_phase_precompute_hooks_match():
     """phases=/cover_phases= precompute kwargs must reproduce the
     from-image results exactly (the do_check single-FFT path)."""
-    from steganosaurus_tpu.utils.steganalysis import (
+    from steganosaurus_jax.utils.steganalysis import (
         annulus_phases, cross_channel_report, phase_histogram_report)
 
     rng = np.random.default_rng(4)
@@ -414,7 +414,7 @@ def photo_cover():
     """A natural-photograph crop (256²) — the cover class whose local
     spectral phase coherence the joint warden's cover model exploits
     (doc/ATTACKS.md §2f)."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     return sa.srm_corpus(1, hw=(256, 256), seed=7, kind="photo")[0]
 
@@ -424,7 +424,7 @@ def test_joint_residual_coherence_physics(photo_cover):
     coherence to magnitude (high-magnitude annulus bins sit on locally
     linear phase ramps); synthetic iid-phase covers have no coherence at
     any magnitude — the families the warden is blind to by construction."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     rp = sa.joint_residual_report(photo_cover)
     assert rp["top_coherence"] > 0.12, rp["top_coherence"]
@@ -444,7 +444,7 @@ def test_joint_residual_detects_write_even_under_stealth(photo_cover):
     model keys on. On a coherent cover the per-band coherence drop is
     significant even under the full stealth profile (QIM randomizes the
     phase too; there is no embedding knob against this warden)."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     rng = np.random.default_rng(9)
     secret = bytes(rng.integers(0, 256, 240, dtype=np.uint8))
@@ -462,8 +462,8 @@ def test_joint_residual_corpus_blind_on_iid_phase_covers():
     stealth profile must sit near chance. The same protocol on the photo
     family measures AUC ~1.0 (doc/ATTACKS.md §2f); that heavy run is
     documented, not asserted here."""
-    from steganosaurus_tpu.pipeline.batch import embed_batch
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.pipeline.batch import embed_batch
+    from steganosaurus_jax.utils import steganalysis as sa
 
     n = 16
     p = Params().stealth()
@@ -486,7 +486,7 @@ def test_joint_residual_corpus_blind_on_iid_phase_covers():
 def test_joint_residual_features_match_report_bands():
     """Feature vector layout contract: axis-major per-band mean-cos
     coherences, equal to the report's band values; deterministic."""
-    from steganosaurus_tpu.utils import steganalysis as sa
+    from steganosaurus_jax.utils import steganalysis as sa
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 256, (96, 96, 3), dtype=np.uint8)

@@ -28,9 +28,9 @@ import itertools
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.parallel import batch as pbatch
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.parallel import batch as pbatch
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
 
 AXES = {
     "per_image_walk": (False, True),

@@ -17,11 +17,11 @@ the FFT stays cheap (same physics as the 4K failure, ~6x faster)."""
 import numpy as np
 import pytest
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.pipeline.batch import embed_batch, extract_batch
-from steganosaurus_tpu.pipeline.embed import embed_array
-from steganosaurus_tpu.pipeline.errors import StegoError
-from steganosaurus_tpu.pipeline.extract import extract_array
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.pipeline.batch import embed_batch, extract_batch
+from steganosaurus_jax.pipeline.embed import embed_array
+from steganosaurus_jax.pipeline.errors import StegoError
+from steganosaurus_jax.pipeline.extract import extract_array
 
 FAST = dict(pbkdf2_iter=500)
 MK = bytes(range(32))
@@ -82,7 +82,7 @@ def test_write_floor_boost_math():
     the floor and to 32 in hopeless configs."""
     import jax.numpy as jnp
 
-    from steganosaurus_tpu.ops.phase import write_floor_boost
+    from steganosaurus_jax.ops.phase import write_floor_boost
 
     rng = np.random.default_rng(3)
     n, px = 256, 1024.0 * 1024.0
@@ -117,8 +117,8 @@ def test_corner_apply_write_floor_matches_slot_form():
     same b as the slot-form solver, and leaves zero-delta bins at zero."""
     import jax.numpy as jnp
 
-    from steganosaurus_tpu.ops.phase import write_floor_boost
-    from steganosaurus_tpu.spectral.corner import apply_write_floor
+    from steganosaurus_jax.ops.phase import write_floor_boost
+    from steganosaurus_jax.spectral.corner import apply_write_floor
 
     rng = np.random.default_rng(5)
     K, px = 32, 512.0 * 512.0

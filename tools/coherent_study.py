@@ -15,8 +15,8 @@ import json
 import sys
 import time
 
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.utils import steganalysis as sa
+from steganosaurus_jax.config import Params
+from steganosaurus_jax.utils import steganalysis as sa
 
 SECRET_BYTES = 56  # capacity-equalized: coherent charges every site 3x
                    # (header AND payload ride the common-mode write), so

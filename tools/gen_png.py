@@ -28,7 +28,7 @@ def gen_host(seed: int = 0) -> np.ndarray:
 
 if __name__ == "__main__":
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
-    from steganosaurus_tpu.io import image as image_io
+    from steganosaurus_jax.io import image as image_io
 
     out = sys.argv[1] if len(sys.argv) > 1 else "host.png"
     image_io.save_png(out, gen_host())
